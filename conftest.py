@@ -1,6 +1,8 @@
-"""Root conftest: makes the repo root importable and forces the CPU
-platform with 8 virtual devices before any test imports jax
-(SURVEY.md §4 multi-host testing strategy)."""
+"""Root conftest: makes the repo root importable and pins the test run
+to the CPU with 8 virtual devices before any test imports jax
+(SURVEY.md §4 multi-host testing strategy).  Tests that need a GPU
+carry the `gpu` marker and are run on the card with
+`python -m pytest -m gpu` (tests/conftest.py)."""
 
 import os
 import sys
@@ -8,9 +10,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).parent))
 
-# Force CPU for tests even when the ambient environment selects a TPU
-# platform; set DETEX_TEST_TPU=1 to run the suite on real hardware.
-if not os.environ.get("DETEX_TEST_TPU"):
+if "DETEX_TEST_GPU" not in os.environ:
     os.environ["JAX_PLATFORMS"] = "cpu"
 _flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in _flags:

@@ -21,6 +21,7 @@ from detex_tpu import formats as F
 from detex_tpu import io as tio
 from detex_tpu.io import registry
 from detex_tpu.texture import Texture
+from detex_tpu.utils.compile_cache import use_compile_cache
 
 _FILE_TYPES = {"ktx": "ktx", "dds": "dds", "raw": "raw", "png": "png"}
 
@@ -57,6 +58,7 @@ def main(argv=None) -> int:
     p.add_argument("input_file")
     p.add_argument("output_file")
     args = p.parse_args(argv)
+    use_compile_cache()
 
     def message(*a):
         if not args.quiet:

@@ -18,6 +18,7 @@ import sys
 from detex_tpu.mpc import dynamics as D
 from detex_tpu.mpc.train_loop import TrainConfig, train
 from detex_tpu.parallel import distributed
+from detex_tpu.utils.compile_cache import use_compile_cache
 
 
 def main(argv=None) -> int:
@@ -34,6 +35,7 @@ def main(argv=None) -> int:
     p.add_argument("--mesh", default=None,
                    help="mesh shape dpxtp, e.g. 4x2 (default: all dp)")
     args = p.parse_args(argv)
+    use_compile_cache()
 
     distributed.initialize()
     mesh_shape = (tuple(int(x) for x in args.mesh.split("x"))

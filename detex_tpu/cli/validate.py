@@ -25,6 +25,7 @@ from detex_tpu import formats as F
 from detex_tpu import hdr
 from detex_tpu import io as tio
 from detex_tpu.texture import Texture
+from detex_tpu.utils.compile_cache import use_compile_cache
 
 # validate.c:31-57 file list (two files are absent from the reference
 # tree; SURVEY.md §2 item 26).
@@ -162,6 +163,7 @@ def main(argv=None) -> int:
                         "family on the device and bit-compare against "
                         "the native C++ oracle")
     args = p.parse_args(argv)
+    use_compile_cache()
 
     def message(*a):
         if not args.quiet:

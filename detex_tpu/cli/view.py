@@ -19,6 +19,7 @@ from detex_tpu import formats as F
 from detex_tpu import io as tio
 from detex_tpu.io import registry
 from detex_tpu.texture import Texture
+from detex_tpu.utils.compile_cache import use_compile_cache
 
 
 def main(argv=None) -> int:
@@ -30,6 +31,7 @@ def main(argv=None) -> int:
     p.add_argument("-z", "--zoom", type=int, default=1,
                    help="integer nearest-neighbour zoom factor")
     args = p.parse_args(argv)
+    use_compile_cache()
 
     textures = tio.load_texture_file(args.input_file, max_mipmaps=1)
     tex = textures[0]

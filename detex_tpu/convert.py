@@ -1,6 +1,6 @@
 """Pixel-format conversion engine (host-side numpy, bit-exact).
 
-TPU-rebuild equivalent of the reference conversion engine
+Rebuild equivalent of the reference conversion engine
 (reference: convert.c:31-751 kernels, convert.c:765-864 edge table,
 convert.c:888-1048 path search).  The kernels are vectorized numpy over
 flat byte buffers; the 72-entry conversion graph and the path search

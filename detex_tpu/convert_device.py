@@ -1,6 +1,6 @@
 """Device-side (jnp) pixel-format conversion kernels.
 
-TPU-resident mirror of the host conversion engine (detex_tpu/convert.py;
+Device-resident mirror of the host conversion engine (detex_tpu/convert.py;
 reference convert.c:31-751).  The host engine stays the parity oracle —
 every kernel here is tested bit-exact against it — while this module
 lets the texture engine run decode -> convert -> assemble as ONE jitted
@@ -18,8 +18,8 @@ Exact-rounding notes:
   * f32<->f16 reproduce James Tursa's integer routines
     (half-float.c:102-267) directly on the bit patterns.
   * normalized float->u16 is FE_DOWNWARD lrintf(clamp01(f)*65535+0.5)
-    (half-float.c:304-322).  TPU has no float64 and no directed
-    rounding, so `quantize_u16_downward` computes the exact result in
+    (half-float.c:304-322).  The device path uses no float64 (x64 is
+    off) and XLA has no directed rounding, so `quantize_u16_downward` computes the exact result in
     32-bit limb integer arithmetic: the clamped f32 is decomposed into
     (mantissa, exponent), the product m*65535 (< 2^41) is held in two
     uint32 limbs, truncated to 24 significant bits (round-toward -inf

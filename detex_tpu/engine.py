@@ -1,6 +1,6 @@
 """Texture decode engine: batched block decode + conversion + assembly.
 
-TPU-rebuild equivalent of the reference texture engine
+Device-resident equivalent of the reference texture engine
 (reference: texture.c:27-145).  Where the reference walks blocks one at
 a time through a function-pointer table (texture.c:85-96, 115-143), this
 engine decodes the *entire* texture as one batched, jitted device
@@ -10,7 +10,8 @@ reshape/transpose — no per-block loop anywhere.
 Layers:
   decode_blocks_device : blocks -> decoder-native device arrays
       (packed RGBA8 pixels for the u32 families; packed PAYLOAD words
-      for the p8/p16/... families — see the _DECODERS kind table)
+      for the p8/p16/... families — see the _DECODERS table, the one
+      place that picks each family's device decoder)
   decode_blocks_sharded: the same, sharded over a mesh axis (zero
       collectives)
   decode_blocks        : blocks -> native per-block pixel bytes (host)
@@ -29,9 +30,15 @@ import numpy as np
 from detex_tpu import convert as C
 from detex_tpu import convert_device as CD
 from detex_tpu import formats as F
-from detex_tpu.ops.bitops import words_from_bytes
-from detex_tpu.ops.pallas import (bc_pallas, bptc_float_pallas,
-                                  bptc_pallas, etc_eac_pallas)
+from detex_tpu.ops import bc as BCJ
+from detex_tpu.ops import bptc_fast as BPJ
+from detex_tpu.ops import bptc_float as BFJ
+from detex_tpu.ops import eac as EACJ
+from detex_tpu.ops import etc as ETCJ
+from detex_tpu.ops import rgtc as RGJ
+from detex_tpu.ops.bitops import pack_u8x4, pack_u16x2, words_from_bytes
+from detex_tpu.ops.pallas import (bptc_float_pallas, bptc_pallas,
+                                  etc_eac_pallas)
 from detex_tpu.texture import Texture
 
 # Backend that actually executed the most recent
@@ -39,8 +46,43 @@ from detex_tpu.texture import Texture
 # callers and benchmarks confirm no silent downgrade happened.
 LAST_BACKEND: str = ""
 
-# compressed-format index -> (decoder, native packer kind)
-# Packer kinds describe the native array -> byte-layout mapping:
+_FULL = 0xFFFFFFFF
+
+
+def _packed(fn, pack):
+    """Per-value jnp decoder -> decoder of packed payload words."""
+    def dec(words, mode_mask=_FULL, flags=0):
+        vals, valid = fn(words, mode_mask, flags)
+        return pack(vals.reshape(vals.shape[0], -1)), valid
+    dec.__name__ = dec.__qualname__ = f"{fn.__name__}_packed"
+    dec.__module__ = fn.__module__
+    return dec
+
+
+def _gpu_kernel(kernel, fallback):
+    """Decoder that lowers to `kernel` (a Pallas kernel compiled for
+    the GPU through Triton) on CUDA, and to the jnp `fallback` on every
+    other platform.  The choice is made per lowering, so one jitted
+    program placed on the CPU still gets the jnp decoder."""
+    def dec(words, mode_mask=_FULL, flags=0):
+        if isinstance(mode_mask, int):
+            mode_mask = np.uint32(mode_mask & _FULL)
+        if isinstance(flags, int):
+            flags = np.uint32(flags & _FULL)
+        return jax.lax.platform_dependent(words, mode_mask, flags,
+                                          cuda=kernel, default=fallback)
+    dec.gpu_kernel, dec.fallback = kernel, fallback
+    return dec
+
+
+# The device decoder table: compressed-format index -> (decoder, packer
+# kind).  It is the one place that picks how a family decodes on the
+# device (decode_blocks_device, the fused texture pipelines and the
+# control/train steps' BC7 observation decode all read it).  An entry is
+# a plain jnp decoder, which XLA fuses with the rest of the pipeline,
+# or, where a hand-written kernel beat it end to end on an H100, that
+# kernel on the GPU with the jnp decoder elsewhere (_gpu_kernel).
+# Packer kinds describe the decoder's output -> byte-layout mapping:
 #   u32  : (N, 16) packed 32-bit RGBA8 pixels
 #   p8   : (N, k) words of 4 packed u8 pixels    (R8)
 #   p8x2 : (N, k) words of 2 packed RG8 pixels
@@ -49,34 +91,70 @@ LAST_BACKEND: str = ""
 #   p16x4: (N, 32) word pairs R|G<<16, B|X<<16   (FLOAT_RGBX16)
 # All kinds are little-endian byte streams equal to the reference
 # decoders' pixel_buffer layouts (detex.h:879-930 pixel sizes) — the
-# kernels emit the TRUE payload, with no write amplification.
+# decoders emit the TRUE payload, with no write amplification.
 _DECODERS = {
-    F.IDX_BC1: (bc_pallas.decode_bc1_auto, "u32"),
-    F.IDX_BC1A: (bc_pallas.decode_bc1a_auto, "u32"),
-    F.IDX_BC2: (bc_pallas.decode_bc2_auto, "u32"),
-    F.IDX_BC3: (bc_pallas.decode_bc3_auto, "u32"),
-    F.IDX_RGTC1: (bc_pallas.decode_rgtc1_packed_auto, "p8"),
-    F.IDX_SIGNED_RGTC1: (bc_pallas.decode_signed_rgtc1_packed_auto, "p16"),
-    F.IDX_RGTC2: (bc_pallas.decode_rgtc2_packed_auto, "p8x2"),
-    F.IDX_SIGNED_RGTC2: (bc_pallas.decode_signed_rgtc2_packed_auto,
+    F.IDX_BC1: (BCJ.decode_bc1, "u32"),
+    F.IDX_BC1A: (BCJ.decode_bc1a, "u32"),
+    F.IDX_BC2: (BCJ.decode_bc2, "u32"),
+    F.IDX_BC3: (BCJ.decode_bc3, "u32"),
+    F.IDX_RGTC1: (_packed(RGJ.decode_rgtc1, pack_u8x4), "p8"),
+    F.IDX_SIGNED_RGTC1: (_packed(RGJ.decode_signed_rgtc1, pack_u16x2),
+                         "p16"),
+    F.IDX_RGTC2: (_packed(RGJ.decode_rgtc2, pack_u8x4), "p8x2"),
+    F.IDX_SIGNED_RGTC2: (_packed(RGJ.decode_signed_rgtc2, pack_u16x2),
                          "p16x2"),
-    F.IDX_BPTC_FLOAT: (bptc_float_pallas.decode_bptc_float_packed_auto,
-                       "p16x4"),
-    F.IDX_BPTC_SIGNED_FLOAT: (
-        bptc_float_pallas.decode_bptc_signed_float_packed_auto, "p16x4"),
-    F.IDX_BPTC: (bptc_pallas.decode_bptc_auto, "u32"),
-    F.IDX_ETC1: (etc_eac_pallas.decode_etc1_auto, "u32"),
-    F.IDX_ETC2: (etc_eac_pallas.decode_etc2_auto, "u32"),
-    F.IDX_ETC2_PUNCHTHROUGH: (etc_eac_pallas.decode_etc2_punchthrough_auto,
-                              "u32"),
-    F.IDX_ETC2_EAC: (etc_eac_pallas.decode_etc2_eac_auto, "u32"),
-    F.IDX_EAC_R11: (etc_eac_pallas.decode_eac_r11_packed_auto, "p16"),
-    F.IDX_EAC_SIGNED_R11: (etc_eac_pallas.decode_eac_signed_r11_packed_auto,
+    F.IDX_BPTC_FLOAT: (_gpu_kernel(
+        bptc_float_pallas.decode_bptc_float_packed,
+        _packed(BFJ.decode_bptc_float, pack_u16x2)), "p16x4"),
+    F.IDX_BPTC_SIGNED_FLOAT: (_gpu_kernel(
+        functools.partial(bptc_float_pallas.decode_bptc_float_packed,
+                          signed=True),
+        _packed(BFJ.decode_bptc_signed_float, pack_u16x2)), "p16x4"),
+    F.IDX_BPTC: (_gpu_kernel(bptc_pallas.decode_bptc,
+                             BPJ.decode_bptc_fast), "u32"),
+    F.IDX_ETC1: (ETCJ.decode_etc1, "u32"),
+    F.IDX_ETC2: (_gpu_kernel(etc_eac_pallas.decode_etc2,
+                             ETCJ.decode_etc2), "u32"),
+    F.IDX_ETC2_PUNCHTHROUGH: (_gpu_kernel(
+        etc_eac_pallas.decode_etc2_punchthrough,
+        ETCJ.decode_etc2_punchthrough), "u32"),
+    F.IDX_ETC2_EAC: (_gpu_kernel(etc_eac_pallas.decode_etc2_eac,
+                                 ETCJ.decode_etc2_eac), "u32"),
+    F.IDX_EAC_R11: (_packed(EACJ.decode_eac_r11, pack_u16x2), "p16"),
+    F.IDX_EAC_SIGNED_R11: (_packed(EACJ.decode_eac_signed_r11, pack_u16x2),
                            "p16"),
-    F.IDX_EAC_RG11: (etc_eac_pallas.decode_eac_rg11_packed_auto, "p16x2"),
+    F.IDX_EAC_RG11: (_packed(EACJ.decode_eac_rg11, pack_u16x2), "p16x2"),
     F.IDX_EAC_SIGNED_RG11: (
-        etc_eac_pallas.decode_eac_signed_rg11_packed_auto, "p16x2"),
+        _packed(EACJ.decode_eac_signed_rg11, pack_u16x2), "p16x2"),
 }
+
+
+def device_decoder(tex_fmt: int):
+    """The table's device decoder for a compressed format:
+    (N, k) int32 words -> (payload words, (N,) bool valid)."""
+    idx = F.compressed_index(tex_fmt)
+    if idx not in _DECODERS:
+        raise ValueError(f"not a compressed format: {tex_fmt:#x}")
+    return _DECODERS[idx][0]
+
+
+def _name(fn) -> str:
+    if isinstance(fn, functools.partial):
+        args = ", ".join(f"{k}={v}" for k, v in fn.keywords.items())
+        return f"{_name(fn.func)}({args})"
+    return f"{fn.__module__}.{fn.__qualname__}"
+
+
+def decoder_name(tex_fmt: int, platform: str = None) -> str:
+    """What the table runs for `tex_fmt` on `platform` (default: JAX's
+    default backend): "triton:<kernel>" or "xla:<jnp decoder>"."""
+    fn = device_decoder(tex_fmt)
+    platform = platform or jax.default_backend()
+    if hasattr(fn, "gpu_kernel"):
+        if platform == "gpu":
+            return f"triton:{_name(fn.gpu_kernel)}"
+        fn = fn.fallback
+    return f"xla:{_name(fn)}"
 
 
 # compressed-format index -> native-library family name (detex_tpu.native)
@@ -139,12 +217,12 @@ _MESHES = {}
 def decode_blocks_sharded(tex_fmt: int, words, mesh, mode_mask=0xFFFFFFFF,
                           flags=0, axis: str = "dp"):
     """Scale-out decode: shard the block batch over `axis` of `mesh`
-    and decode every shard with the local Pallas kernel under ONE
+    and decode every shard with the table's decoder under ONE
     shard_map — block decode is embarrassingly parallel (each 4x4
     block is independent, texture.c:85-96), so the compiled program
     contains ZERO collectives (asserted in tests/test_mppi_sharding
     .py::test_sharded_decode_no_collectives) and throughput scales
-    linearly with chips.  `words` is (N, k) int32 with N divisible by
+    linearly with devices.  `words` is (N, k) int32 with N divisible by
     the axis size; returns sharded (pixels, valid) device arrays."""
     idx = F.compressed_index(tex_fmt)
     if idx not in _DECODERS:
@@ -184,8 +262,8 @@ def decode_blocks(tex_fmt: int, blocks_u8: np.ndarray,
     ((N, 16*ps) u8) plus validity; invalid blocks are NOT zeroed here —
     callers zero in the *target* format (texture.c:90-93).
 
-    backend: "jax" (device decode, Pallas on TPU) or "native" (the
-    multithreaded C++ host runtime)."""
+    backend: "jax" (the decoder table on the default JAX device) or
+    "native" (the multithreaded C++ host runtime)."""
     idx = F.compressed_index(tex_fmt)
     if backend == "native":
         from detex_tpu import native
@@ -217,9 +295,7 @@ def _native_to_typed(idx: int, pix):
         lanes = 2 if kind == "p8x2" else 1
         return b.reshape(n * 16, lanes)
     if kind == "p16x4":
-        # (N, 32) word pairs: channel planes via strided slices — the
-        # lo/hi interleave form lowers to a ~2x-slower relayout
-        # (measured in the BC6H pipeline, PROFILE.md round 4).
+        # (N, 32) word pairs: channel planes via strided slices.
         v = pix.astype(jnp.uint32)
         rg, bx = v[:, 0::2], v[:, 1::2]
         h = jnp.stack([rg & 0xFFFF, rg >> 16, bx & 0xFFFF, bx >> 16],
@@ -234,44 +310,50 @@ def _native_to_typed(idx: int, pix):
     raise AssertionError(f"unknown packer kind {kind!r}")
 
 
-# Planar kernel entry points (words (k, N) -> pixels (16, N)) + best
-# v5e tile for the u32 families: the fused pipeline feeds these
-# directly, skipping BOTH row transposes of the rows-level wrappers
-# (input (N, k) -> (k, N) and output (16, N) -> (N, 16) are each a
-# full-array relayout; tools/pipeline_stages.py round 5).
-_PLANAR_DECODERS = {
-    F.IDX_BC1: (bc_pallas.decode_bc1_planar, 1024),
-    F.IDX_BC1A: (bc_pallas.decode_bc1a_planar, 512),
-    F.IDX_BC2: (bc_pallas.decode_bc2_planar, 512),
-    F.IDX_BC3: (bc_pallas.decode_bc3_planar, 256),
-    F.IDX_BPTC: (bptc_pallas.decode_bptc_planar, 256),
-    F.IDX_ETC1: (etc_eac_pallas.decode_etc1_planar, 1024),
-    F.IDX_ETC2: (etc_eac_pallas.decode_etc2_planar, 256),
-    F.IDX_ETC2_PUNCHTHROUGH: (
-        etc_eac_pallas.decode_etc2_punchthrough_planar, 256),
-    F.IDX_ETC2_EAC: (etc_eac_pallas.decode_etc2_eac_planar, 256),
-}
-
-
-def _planar_decode(idx: int, words_planar, mode_mask, flags):
-    fn, best_tile = _PLANAR_DECODERS[idx]
-    n = words_planar.shape[1]
-    tile = best_tile if n >= 8 * best_tile else 128
-    return fn(words_planar, mode_mask, flags, tile=tile)
-
-
 # 8-bit x 4-lane formats whose mutual conversions are compositions of
 # no-ops and R/B swaps (convert.c:768-778): representable on PACKED
 # 32-bit pixels, so the fused pipeline can skip the byte unpack and
-# keep the assembly transpose in 32-bit lanes (4x fewer VPU ops).
-_PACKED32_FMTS = None
+# keep the assembly in 32-bit lanes.
+_PACKED32_FMTS = frozenset({F.RGBA8, F.RGBX8, F.BGRA8, F.BGRX8})
 
 
-def _packed32_fmts():
-    global _PACKED32_FMTS
-    if _PACKED32_FMTS is None:
-        _PACKED32_FMTS = {F.RGBA8, F.RGBX8, F.BGRA8, F.BGRX8}
-    return _PACKED32_FMTS
+def _decode_convert_fn(tex_fmt: int, pixel_format: int):
+    """words -> (per-block converted pixels with invalid blocks zeroed
+    in the target format, lanes).  Packed (N, 16) uint32 for 8-bit
+    4-lane targets of packed-pixel decoders (lanes None), else
+    (N, 16, lanes) in convert_device's lane representation."""
+    import jax.numpy as jnp
+    idx = F.compressed_index(tex_fmt)
+    dec_fn, kind = _DECODERS[idx]
+    src_fmt = F.texture_pixel_format(tex_fmt)
+    # Packed fast path: decoder emits packed 32-bit pixels and the
+    # conversion is a noop/R-B-swap composition — byte-identical to
+    # the lane path, but the whole pipeline stays in u32.
+    if (kind == "u32" and src_fmt in _PACKED32_FMTS
+            and pixel_format in _PACKED32_FMTS):
+        swap = F.is_bgr(src_fmt) != F.is_bgr(pixel_format)
+
+        def packed(words, mode_mask, flags):
+            pix, valid = dec_fn(words, mode_mask, flags)
+            v = pix.astype(jnp.uint32)
+            if swap:
+                v = ((v & 0xFF) << 16) | (v & jnp.uint32(0xFF00FF00)) \
+                    | ((v >> 16) & 0xFF)
+            return jnp.where(valid[:, None], v, jnp.uint32(0))
+
+        return packed, None
+    lanes = CD.repr_lanes(pixel_format)
+
+    def converted(words, mode_mask, flags):
+        pix, valid = dec_fn(words, mode_mask, flags)
+        typed = _native_to_typed(idx, pix)
+        conv = CD.convert_pixels_device(typed, src_fmt, pixel_format)
+        conv = conv.reshape(valid.shape[0], 16, lanes)
+        # Invalid blocks zero in the *target* format (texture.c:125-127).
+        return jnp.where(valid[:, None, None], conv,
+                         jnp.zeros((), conv.dtype))
+
+    return converted, lanes
 
 
 @functools.lru_cache(maxsize=None)
@@ -281,69 +363,18 @@ def _device_pipeline(tex_fmt: int, pixel_format: int, wb: int, hb: int,
     (the whole reference call stack texture.c:105-145 + convert.c as
     ONE device computation, no host round-trip)."""
     import jax.numpy as jnp
-    idx = F.compressed_index(tex_fmt)
-    dec_fn, kind = _DECODERS[idx]
-    src_fmt = F.texture_pixel_format(tex_fmt)
-    lanes = CD.repr_lanes(pixel_format)
-    # Packed fast path: decoder emits packed 32-bit pixels and the
-    # conversion is a noop/R-B-swap composition — byte-identical to
-    # the lane path, but the whole pipeline stays in u32.
-    packed = (kind == "u32" and src_fmt in _packed32_fmts()
-              and pixel_format in _packed32_fmts())
+    fn, lanes = _decode_convert_fn(tex_fmt, pixel_format)
 
-    def assemble(tiles):
-        """(hb, wb, 4, 4, lanes) tiles -> (H, W, lanes) linear image.
-        Slice-per-pixel-row + concat instead of a transpose: measured
-        26x faster on TPU (XLA lowers the (0,2,1,3) transpose of the
-        small inner dims to a ~10 GB/s relayout; the four strided
-        row-slices run at HBM speed — see PROFILE.md)."""
+    def pipeline(words, mode_mask, flags):
+        tiles = fn(words, mode_mask, flags).reshape(hb, wb, 4, 4, lanes or 1)
+        # (hb, wb, 4, 4, lanes) tiles -> (H, W, lanes) linear image as
+        # one strided row slice per pixel row + concat.
         rows = [tiles[:, :, py, :, :].reshape(hb, 1, wb * 4, -1)
                 for py in range(4)]
         img = jnp.concatenate(rows, axis=1).reshape(hb * 4, wb * 4, -1)
         return img[:height, :width]
 
-    if packed and idx in _PLANAR_DECODERS:
-        # Planar-fed packed path.  Assembly stays the strided
-        # slice-per-pixel-row + concat form: under the honest
-        # carry-the-image harness (every iteration materializes the
-        # image to HBM, tools/pipeline_stages.py round 5) it runs at
-        # 57% of the raw kernel rate, the big (16,N)->(N,16) row
-        # transpose is FREE (101%), and the
-        # (4,4,hb,wb)->(hb,4,wb,4) transpose form is catastrophic
-        # (4% — a ~10 GB/s relayout once actually materialized; its
-        # earlier 83% reading was a scalar-consume harness artifact
-        # where XLA elided the relayout entirely).
-        def pipeline_planar(words_planar, mode_mask, flags):
-            pix, valid = _planar_decode(idx, words_planar, mode_mask,
-                                        flags)
-            v = pix.T.astype(jnp.uint32)
-            if F.is_bgr(src_fmt) != F.is_bgr(pixel_format):
-                v = ((v & 0xFF) << 16) | (v & jnp.uint32(0xFF00FF00)) \
-                    | ((v >> 16) & 0xFF)
-            v = jnp.where(valid[:, None], v, jnp.uint32(0))
-            return assemble(v.reshape(hb, wb, 4, 4, 1))
-
-        return jax.jit(pipeline_planar), True
-
-    def pipeline(words, mode_mask, flags):
-        pix, valid = dec_fn(words, mode_mask, flags)
-        n_blocks = valid.shape[0]
-        if packed:
-            v = pix.astype(jnp.uint32)
-            if F.is_bgr(src_fmt) != F.is_bgr(pixel_format):
-                v = ((v & 0xFF) << 16) | (v & jnp.uint32(0xFF00FF00)) \
-                    | ((v >> 16) & 0xFF)
-            v = jnp.where(valid[:, None], v, jnp.uint32(0))
-            return assemble(v.reshape(hb, wb, 4, 4, 1))
-        typed = _native_to_typed(idx, pix)
-        conv = CD.convert_pixels_device(typed, src_fmt, pixel_format)
-        conv = conv.reshape(n_blocks, 16, lanes)
-        # Invalid blocks zero in the *target* format (texture.c:125-127).
-        conv = jnp.where(valid[:, None, None], conv,
-                         jnp.zeros((), conv.dtype))
-        return assemble(conv.reshape(hb, wb, 4, 4, lanes))
-
-    return jax.jit(pipeline), False
+    return jax.jit(pipeline)
 
 
 @functools.lru_cache(maxsize=None)
@@ -353,45 +384,18 @@ def _device_pipeline_tiled(tex_fmt: int, pixel_format: int,
     output layout (reference detexDecompressTextureTiled,
     texture.c:77-98): per-block tiles of 16 converted pixels, no
     relayout."""
-    import jax.numpy as jnp
-    idx = F.compressed_index(tex_fmt)
-    dec_fn, kind = _DECODERS[idx]
-    src_fmt = F.texture_pixel_format(tex_fmt)
-    lanes = CD.repr_lanes(pixel_format)
-    packed = (kind == "u32" and src_fmt in _packed32_fmts()
-              and pixel_format in _packed32_fmts())
+    return jax.jit(_decode_convert_fn(tex_fmt, pixel_format)[0])
 
-    if packed and idx in _PLANAR_DECODERS:
-        # Planar-fed (skips the input row->planar relayout inside the
-        # rows wrapper; the output (16,N)->(N,16) transpose is free —
-        # tools/pipeline_stages.py round 5).
-        def pipeline_planar(words_planar, mode_mask, flags):
-            pix, valid = _planar_decode(idx, words_planar, mode_mask,
-                                        flags)
-            v = pix.T.astype(jnp.uint32)
-            if F.is_bgr(src_fmt) != F.is_bgr(pixel_format):
-                v = ((v & 0xFF) << 16) | (v & jnp.uint32(0xFF00FF00)) \
-                    | ((v >> 16) & 0xFF)
-            return jnp.where(valid[:, None], v, jnp.uint32(0))
 
-        return jax.jit(pipeline_planar), True
-
-    def pipeline(words, mode_mask, flags):
-        pix, valid = dec_fn(words, mode_mask, flags)
-        n_blocks = valid.shape[0]
-        if packed:
-            v = pix.astype(jnp.uint32)
-            if F.is_bgr(src_fmt) != F.is_bgr(pixel_format):
-                v = ((v & 0xFF) << 16) | (v & jnp.uint32(0xFF00FF00)) \
-                    | ((v >> 16) & 0xFF)
-            return jnp.where(valid[:, None], v, jnp.uint32(0))
-        typed = _native_to_typed(idx, pix)
-        conv = CD.convert_pixels_device(typed, src_fmt, pixel_format)
-        conv = conv.reshape(n_blocks, 16, lanes)
-        return jnp.where(valid[:, None, None], conv,
-                         jnp.zeros((), conv.dtype))
-
-    return jax.jit(pipeline), False
+def _device_words(tex: Texture, pixel_format: int):
+    if not F.is_compressed(tex.format):
+        raise ValueError("device path requires a compressed texture")
+    src_fmt = F.texture_pixel_format(tex.format)
+    if not CD.path_supported(src_fmt, pixel_format):
+        raise C.ConversionError(
+            f"conversion {F.format_name(src_fmt)} -> "
+            f"{F.format_name(pixel_format)} is not device-executable")
+    return words_from_bytes(tex.data.reshape(tex.n_blocks, tex.block_size))
 
 
 def decompress_texture_tiled_device(tex: Texture,
@@ -403,19 +407,9 @@ def decompress_texture_tiled_device(tex: Texture,
     (n_blocks, 16, lanes) in convert_device's lane representation."""
     if pixel_format is None:
         pixel_format = F.texture_pixel_format(tex.format)
-    if not F.is_compressed(tex.format):
-        raise ValueError("device path requires a compressed texture")
-    src_fmt = F.texture_pixel_format(tex.format)
-    if not CD.path_supported(src_fmt, pixel_format):
-        raise C.ConversionError(
-            f"conversion {F.format_name(src_fmt)} -> "
-            f"{F.format_name(pixel_format)} is not device-executable")
-    blocks = tex.data.reshape(tex.n_blocks, tex.block_size)
-    words = words_from_bytes(blocks)
-    fn, planar = _device_pipeline_tiled(tex.format, pixel_format,
-                                        CD.hdr_params_key())
-    if planar:
-        words = np.ascontiguousarray(np.asarray(words).T)
+    words = _device_words(tex, pixel_format)
+    fn = _device_pipeline_tiled(tex.format, pixel_format,
+                                CD.hdr_params_key())
     return fn(words, np.uint32(mode_mask), np.uint32(flags))
 
 
@@ -433,21 +427,10 @@ def decompress_texture_linear_device(tex: Texture,
     exists at all for the format pair."""
     if pixel_format is None:
         pixel_format = F.texture_pixel_format(tex.format)
-    if not F.is_compressed(tex.format):
-        raise ValueError("device path requires a compressed texture")
-    src_fmt = F.texture_pixel_format(tex.format)
-    if not CD.path_supported(src_fmt, pixel_format):
-        raise C.ConversionError(
-            f"conversion {F.format_name(src_fmt)} -> "
-            f"{F.format_name(pixel_format)} is not device-executable")
-    blocks = tex.data.reshape(tex.n_blocks, tex.block_size)
-    words = words_from_bytes(blocks)
-    fn, planar = _device_pipeline(tex.format, pixel_format,
-                                  tex.width_in_blocks,
-                                  tex.height_in_blocks, tex.width,
-                                  tex.height, CD.hdr_params_key())
-    if planar:
-        words = np.ascontiguousarray(np.asarray(words).T)
+    words = _device_words(tex, pixel_format)
+    fn = _device_pipeline(tex.format, pixel_format, tex.width_in_blocks,
+                          tex.height_in_blocks, tex.width, tex.height,
+                          CD.hdr_params_key())
     return fn(words, np.uint32(mode_mask), np.uint32(flags))
 
 

@@ -1,6 +1,6 @@
 """Pixel / texture format registry for detex-tpu.
 
-This is the TPU-native rebuild's equivalent of the reference's bit-encoded
+This is the rebuild's equivalent of the reference's bit-encoded
 format enums (reference: detex.h:83-379 pixel formats, detex.h:575-727
 texture formats).  Formats are plain ints whose bits encode structure, so
 format-driven dispatch stays table-based and jit-friendly.

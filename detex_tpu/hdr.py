@@ -1,6 +1,6 @@
 """HDR -> LDR mapping with gamma/range parameters.
 
-TPU-rebuild equivalent of the reference HDR module
+Rebuild equivalent of the reference HDR module
 (reference: hdr.c:32-213).  The reference keeps gamma/range in
 thread-local globals (hdr.c:32-36) set by detexSetHDRParameters
 (hdr.c:38-43); we mirror that as module state so the conversion graph

@@ -1,6 +1,6 @@
 """DDS reader/writer (host-side numpy).
 
-TPU-rebuild equivalent of the reference DDS I/O
+Rebuild equivalent of the reference DDS I/O
 (reference: dds.c:32-142 load, dds.c:163-296 save).
 """
 

@@ -1,6 +1,6 @@
 """KTX 1.1 reader/writer (host-side numpy).
 
-TPU-rebuild equivalent of the reference KTX I/O
+Rebuild equivalent of the reference KTX I/O
 (reference: ktx.c:36-176 load, ktx.c:207-327 save).
 """
 

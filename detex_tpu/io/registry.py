@@ -1,6 +1,6 @@
 """Texture-format <-> file-format metadata registry.
 
-TPU-rebuild equivalent of the reference's texture_info / synonym tables
+Rebuild equivalent of the reference's texture_info / synonym tables
 (reference: file-info.c:49-188) and the lookup functions
 (file-info.c:193-330).  Pure host-side metadata.
 """

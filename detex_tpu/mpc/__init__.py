@@ -1,7 +1,7 @@
 """Sampling-MPC engine: visual-latent dynamics + MPPI + iLQR.
 
 This subsystem has no reference counterpart (SURVEY.md §2.2): detex is
-the perception front-end; the MPC engine is the new TPU-native system
+the perception front-end; the MPC engine is the new system
 built on top of batched block decode.
 """
 

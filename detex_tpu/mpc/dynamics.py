@@ -1,6 +1,6 @@
 """Visual-latent dynamics model: conv encoder + residual MLP dynamics.
 
-New TPU-native component (no reference counterpart).  The encoder maps
+New component (no reference counterpart).  The encoder maps
 decoded RGBA8 observations (from the batched block decoders) into a
 latent state z; the dynamics model predicts z' = f(z, u).  Everything
 is plain jax pytrees + optax, designed to shard:
@@ -8,7 +8,8 @@ is plain jax pytrees + optax, designed to shard:
   * batch axis       -> mesh axis "dp"
   * hidden features  -> mesh axis "tp" (matmuls column/row sharded)
 
-bfloat16 compute on the MXU, float32 params/optimizer state.
+bfloat16 compute (tensor cores on the GPU), float32 params/optimizer
+state.
 """
 
 from __future__ import annotations

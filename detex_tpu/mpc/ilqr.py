@@ -1,6 +1,6 @@
 """iLQR trajectory optimizer — scan-based Riccati, jit/pjit friendly.
 
-New TPU-native component (no reference counterpart).  Refines an MPPI
+New component (no reference counterpart).  Refines an MPPI
 plan with a few Gauss-Newton iterations:
 
   linearize   : per-step jacobians via vmap(jacfwd) along the trajectory
@@ -8,7 +8,7 @@ plan with a few Gauss-Newton iterations:
                 or the log-depth parallel LQT (parallel=True: the
                 Gauss-Newton subproblem IS an LQT, solved with the
                 associative-scan elements of parallel_lqr.py; its
-                batched element combines ride the MXU)
+                element combines are batched matmuls)
   forward     : rollout with a line search vmapped over all alphas
 
 Everything is functional and static-shaped: horizon and iteration
@@ -132,7 +132,12 @@ def ilqr_solve(dynamics: Callable, cost: Callable,
         vx_T = jax.grad(terminal_cost)(xs[-1])
         vxx_T = jax.hessian(terminal_cost)(xs[-1])
         bwd = backward_parallel if cfg.parallel else backward
-        ks, bigks = bwd(fx, fu, lx, lu, lxx, luu, lux, vx_T, vxx_T, reg)
+        # Full f32 Riccati products: on a GPU an f32 matmul at default
+        # precision may run as TF32 (~3 decimal digits), too coarse for
+        # the backward recursion.
+        with jax.default_matmul_precision("highest"):
+            ks, bigks = bwd(fx, fu, lx, lu, lxx, luu, lux, vx_T, vxx_T,
+                            reg)
 
         def try_alpha(alpha):
             xs_a, us_a = forward(xs, us, ks, bigks, alpha)

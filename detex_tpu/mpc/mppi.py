@@ -1,6 +1,6 @@
 """MPPI (Model Predictive Path Integral) sampling MPC — batched, sharded.
 
-New TPU-native component (no reference counterpart).  K rollouts of
+New component (no reference counterpart).  K rollouts of
 horizon H are evaluated in parallel:
 
     u*_t = sum_k w_k c_k,t / sum_k w_k,   w_k = exp(-(S_k - min S)/T)
@@ -12,7 +12,7 @@ order):
     ``jax.shard_map`` over the rollout axis: every device rolls out its
     K/n_dp shard, the softmax-weight normalization is a ``psum`` over
     'dp' and the baseline subtraction a ``pmin``, so the multi-chip
-    program is the single-chip program + three collectives riding ICI.
+    program is the single-device program + three collectives.
   * ``mppi_step(..., rollout_axis="dp")`` (no mesh) — GSPMD path:
     ``with_sharding_constraint`` pins the noise/controls/costs to
     P('dp') and XLA lowers the reductions to all-reduces itself.
@@ -88,8 +88,8 @@ def _mppi_update(eps, nominal, z0, dynamics, cost, cfg: MPPIConfig,
     When `axis` is set the function runs *inside* shard_map: eps holds
     this device's rollouts and every reduction pairs with a collective
     over `axis`.  A tuple axis (e.g. ('dcn', 'ici')) reduces
-    hierarchically, innermost (ICI) axis first, so only the final
-    O(H*A) partial crosses the outer (DCN) axis
+    hierarchically, innermost (within-host) axis first, so only the
+    final O(H*A) partial crosses the outer (between-hosts) axis
     (parallel/distributed.py mesh layout)."""
     axes = (axis,) if isinstance(axis, str) else axis
     controls = jnp.clip(nominal[None] + eps, cfg.action_low,
@@ -98,7 +98,7 @@ def _mppi_update(eps, nominal, z0, dynamics, cost, cfg: MPPIConfig,
                           vary_axis=axis)
     beta = jnp.min(costs)
     if axes is not None:
-        for ax in reversed(axes):          # ICI first, DCN last
+        for ax in reversed(axes):  # within a host first, then between
             beta = jax.lax.pmin(beta, ax)
     w = jnp.exp(-(costs - beta) / cfg.temperature)
     # Weighted average of the *clipped* perturbed controls.

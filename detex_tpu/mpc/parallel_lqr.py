@@ -4,8 +4,8 @@ The long-horizon scaling analogue of sequence parallelism (SURVEY.md §5
 "long-context"): the Riccati backward pass is a sequential recursion of
 depth H; reformulated as an associative combination of conditional
 value-function elements it runs in O(log H) depth with
-jax.lax.associative_scan, and the elementwise combines batch onto the
-MXU.  (Cf. Särkkä & García-Fernández, temporal parallelization of LQR.)
+jax.lax.associative_scan, and the elementwise combines are batched
+matmuls.  (Cf. Särkkä & García-Fernández, temporal parallelization of LQR.)
 
 Element (A, b, C, eta, J) represents the optimal cost-to-go between two
 times conditioned on both endpoint states; combination eliminates the

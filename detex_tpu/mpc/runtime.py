@@ -23,7 +23,7 @@ from detex_tpu import formats as F
 from detex_tpu.mpc import dynamics as D
 from detex_tpu.mpc import ilqr as ilqr_mod
 from detex_tpu.mpc import mppi as mppi_mod
-from detex_tpu.ops.pallas import bptc_pallas
+from detex_tpu import engine
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +46,7 @@ def unpack_rgba8_image(packed: jnp.ndarray, height: int,
                        width: int) -> jnp.ndarray:
     """(N_blocks, 16) packed RGBA8 int32 -> (H, W, 4) int32 0..255.
 
-    The tiled->linear relayout is four strided row-slices + concat
-    rather than a transpose of the small inner dims — 26x faster on
-    TPU (PROFILE.md relayout measurements)."""
+    The tiled->linear relayout is four strided row-slices + concat."""
     hb, wb = height // 4, width // 4
     x = packed.reshape(hb, wb, 4, 4)
     rows = [x[:, :, py, :].reshape(hb, 1, wb * 4) for py in range(4)]
@@ -62,8 +60,8 @@ def unpack_rgba8_image(packed: jnp.ndarray, height: int,
 
 def decode_obs(words: jnp.ndarray, height: int, width: int) -> jnp.ndarray:
     """BC7 block words (N, 4) -> (H, W, 4) uint8-valued image, in-graph
-    (fused Pallas kernel on TPU)."""
-    pix, _ = bptc_pallas.decode_bptc_auto(words)
+    (the engine decoder table's BC7 entry)."""
+    pix, _ = engine.device_decoder(F.BPTC)(words)
     return unpack_rgba8_image(pix, height, width)
 
 
@@ -92,7 +90,7 @@ def decode_obs_batch(words: jnp.ndarray, height: int,
     control step's decode_obs — training and control share the
     perception path (BASELINE north star)."""
     b, nb, _ = words.shape
-    pix, _ = bptc_pallas.decode_bptc_auto(words.reshape(b * nb, 4))
+    pix, _ = engine.device_decoder(F.BPTC)(words.reshape(b * nb, 4))
     return unpack_rgba8_images(pix.reshape(b, nb, 16), height, width)
 
 
@@ -113,7 +111,7 @@ def control_step(params, nominal, key, obs_words, goal_z,
 
     mesh: optional jax.sharding.Mesh — with cfg.rollout_axis set, the
     MPPI rollout batch runs under an explicit shard_map over that axis
-    (psum/pmin weight reduction over ICI)."""
+    (psum/pmin weight reduction across the devices)."""
     dcfg = cfg.dynamics
     img = decode_obs(obs_words, dcfg.image_size, dcfg.image_size)
     z0 = D.encode(params, img[None].astype(jnp.uint8), dcfg)[0]

@@ -2,7 +2,7 @@
 
 Production driver around mpc.dynamics.train_step (no reference
 counterpart — SURVEY.md §2.2/§5): data-parallel batches over the mesh
-"dp" axis, tensor-parallel params over "tp", periodic orbax
+"dp" axis, tensor-parallel params over "tp", periodic npz
 checkpoints with deterministic resume, and JSON-line metrics.
 
 A synthetic visual environment is included so the loop (and tests) can
@@ -133,20 +133,20 @@ class CorpusReplayEnv:
     CORPUS_PATH = "/root/reference/test-texture-BPTC.ktx"
 
     def __init__(self, cfg: D.DynamicsConfig, seed: int = 0,
-                 corpus_path: Optional[str] = None, pool_random: int = 1024,
-                 state_dim: int = 8):
+                 corpus_path: Optional[str] = CORPUS_PATH,
+                 pool_random: int = 1024, state_dim: int = 8):
+        """corpus_path=None: the random pool only."""
         rng = np.random.default_rng(seed)
         self.cfg = cfg
         self.state_dim = state_dim
         pool = []
-        path = corpus_path or self.CORPUS_PATH
         from detex_tpu.io import ktx as ktx_io
         try:
-            tex = ktx_io.load_ktx(path)[0]
-            corpus = np.ascontiguousarray(
-                tex.data.reshape(tex.n_blocks, 16)).view(np.uint32) \
-                .astype(np.int64).astype(np.int32)
-            pool.append(corpus)
+            if corpus_path is not None:
+                tex = ktx_io.load_ktx(corpus_path)[0]
+                pool.append(np.ascontiguousarray(
+                    tex.data.reshape(tex.n_blocks, 16)).view(np.uint32)
+                    .astype(np.int64).astype(np.int32))
         except (OSError, ValueError, ktx_io.TextureFileError):
             pass          # missing OR corrupt corpus: random pool only
         rand = rng.integers(0, 256, (pool_random, 16), np.uint8)

@@ -1,10 +1,10 @@
 """BC1/BC1A/BC2/BC3 (S3TC/DXT) block decoders — batched, branch-free.
 
-TPU-native redesign of the reference's per-block C decoders
+Batched redesign of the reference's per-block C decoders
 (reference: decompress-bc.c:23-240).  Instead of per-pixel loops and
 branches, both interpolation modes are computed for the whole batch and
 selected with `where`; indices for all 16 pixels are extracted with a
-static unrolled shift (vector ops on the VPU, no gathers).
+static unrolled shift (vector ops, no gathers).
 
 All decoders take little-endian int32 words (see ops.bitops.words_from_bytes)
 and return (pixels, valid):

@@ -1,13 +1,13 @@
 """Batched bit-manipulation primitives on uint32 words.
 
-TPU-native replacement for the reference's serial bitstring reader
+Batched replacement for the reference's serial bitstring reader
 (reference: bits.h:21-61, bits.c:22-44).  Blocks are structure-of-arrays:
 a batch of 64-bit blocks is an int32 array of shape (N, 2) and a 128-bit
 batch is (N, 4), little-endian word order, matching the byte layout the
 C reference reads on little-endian hosts.
 
 Everything works on int32 (JAX default; uint semantics recovered with
-masks) so kernels never touch 64-bit ints and map directly onto the VPU.
+masks) so kernels never touch 64-bit ints.
 """
 
 from __future__ import annotations
@@ -164,3 +164,17 @@ def pack_rgba8(r, g, b, a):
             | (jnp.bitwise_and(g, 0xFF) << 8)
             | (jnp.bitwise_and(b, 0xFF) << 16)
             | (jnp.bitwise_and(a, 0xFF) << 24))
+
+
+def pack_u8x4(vals):
+    """(N, 4k) 8-bit values -> (N, k) little-endian words, 4 per word."""
+    v = jnp.bitwise_and(vals, 0xFF).reshape(vals.shape[0], -1, 4)
+    return (v[:, :, 0] | (v[:, :, 1] << 8) | (v[:, :, 2] << 16)
+            | (v[:, :, 3] << 24))
+
+
+def pack_u16x2(vals):
+    """(N, 2k) 16-bit values (signed ones as their u16 pattern) ->
+    (N, k) little-endian words, 2 per word."""
+    v = jnp.bitwise_and(vals, 0xFFFF).reshape(vals.shape[0], -1, 2)
+    return v[:, :, 0] | (v[:, :, 1] << 16)

@@ -1,6 +1,6 @@
 """BPTC (BC7) block decoder — batched, branch-free, compute-all-modes.
 
-TPU-native redesign of the reference per-block decoder
+Batched redesign of the reference per-block decoder
 (reference: decompress-bptc.c:354-512).  The reference walks a serial
 bit cursor whose positions depend on mode and partition; here every
 mode's layout is a *static* table of bit offsets, the anchored index

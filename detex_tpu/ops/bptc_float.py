@@ -1,6 +1,6 @@
 """BPTC_FLOAT / BPTC_SIGNED_FLOAT (BC6H) block decoder — batched, branch-free.
 
-TPU-native redesign of the reference per-block decoder
+Batched redesign of the reference per-block decoder
 (reference: decompress-bptc-float.c:110-644).  The reference's giant
 14-mode switch of hand-written bit scatters (decompress-bptc-float.c:128-485)
 becomes *data*: a per-mode field-descriptor table driving static

@@ -1,6 +1,6 @@
 """EAC decoders: ETC2_EAC alpha path and EAC R11/RG11 (signed + unsigned).
 
-TPU-native redesign of the reference per-block decoders
+Batched redesign of the reference per-block decoders
 (reference: decompress-eac.c:44-231).  The reference assembles a
 big-endian qword and walks pixels column-major with a serial shift; here
 every pixel's 3-bit index is a static bitfield over byteswapped words,

@@ -1,12 +1,12 @@
 """ETC1 / ETC2 / ETC2_PUNCHTHROUGH block decoders — batched, branch-free.
 
-TPU-native redesign of the reference per-block decoders
+Batched redesign of the reference per-block decoders
 (reference: decompress-etc.c:72-717).  The reference picks one of five
 code paths per block (individual, differential, T, H, planar); here all
 candidate palettes are computed for the whole batch with vector ops and
 the final pixel is selected per block by the detected mode — no
 data-dependent control flow, which keeps the whole decode jittable and
-VPU-friendly.
+vector-friendly.
 
 Bit-exact semantics reproduced:
   * modifier table and 3-bit two's-complement deltas with bit

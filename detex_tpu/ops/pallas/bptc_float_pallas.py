@@ -1,19 +1,20 @@
-"""BC6H (BPTC_FLOAT / BPTC_SIGNED_FLOAT) decode as a fused Pallas kernel.
+"""BC6H (BPTC_FLOAT / BPTC_SIGNED_FLOAT) decode as a fused Pallas kernel,
+compiled for the GPU through Triton (ops/pallas.planar_call).
 
 Bit-exact re-implementation of ops.bptc_float (reference:
-decompress-bptc-float.c:110-644) as a single VPU pass.  The reference's
+decompress-bptc-float.c:110-644) as a single pass per block.  The reference's
 14-mode switch of hand-written bit scatters stays *static*: the kernel
 unrolls all 14 modes (every field extraction is a static two-word
 funnel, 2-3 ops), runs each mode's delta + unquantize arithmetic, and
 selects the surviving endpoint set per block by the detected mode — the
-per-block work is pure VPU with no gathers.  Partition subset bits,
+per-block work is integer arithmetic with no gathers.  Partition subset bits,
 anchors-before counts, and anchor bitmaps for the 2-subset modes are
 bit-packed per partition id and gathered by 32-way select trees.
 
-Layout identical to bptc_pallas: words (4, 8, L) int32 in; output is
+Layout identical to bptc_pallas: words (4, N) int32 in; output is
 the TRUE FLOAT_RGBX16 payload (detex.h:879-930: 8 B/pixel), packed as
-a (32, 8, L) int32 stack — rows 2i = R|G<<16, rows 2i+1 = B|X<<16
-(X = 0) for pixel i — plus (8, L) validity.  128 B out per block, no
+a (32, N) int32 stack — rows 2i = R|G<<16, rows 2i+1 = B|X<<16
+(X = 0) for pixel i — plus (N,) validity.  128 B out per block, no
 write amplification.
 """
 
@@ -21,16 +22,13 @@ from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from detex_tpu.ops import bptc_float as BFJ
 from detex_tpu.ops.bptc import _ANCHOR2, _P2
-from detex_tpu.ops.pallas import use_interpret
+from detex_tpu.ops.pallas import planar_call
 
 _FULL = 0xFFFFFFFF
 
@@ -148,7 +146,7 @@ def _bc6h_kernel(scal_ref, words_ref, out_ref, valid_ref, *, signed: bool):
     # the delta-add + unquantize arithmetic is identical in *shape*
     # across modes and runs ONCE on the selected raw values with
     # per-block constant vectors (epb / delta-bit masks chosen by mode
-    # via 4-bit select trees).  Cuts ~1/3 of the kernel's VPU ops vs
+    # via 4-bit select trees).  Cuts ~1/3 of the kernel's integer ops vs
     # running the endpoint math 14 times (decompress-bptc-float.c
     # semantics unchanged; goldens + fuzz pin bit-exactness).
     keys = [f"{c}{i}" for c in "rgb" for i in range(4)]
@@ -318,123 +316,24 @@ def _bc6h_kernel(scal_ref, words_ref, out_ref, valid_ref, *, signed: bool):
     valid_ref[...] = valid.astype(jnp.int32)
 
 
-def _to_i32_scalar(x):
-    if isinstance(x, (int, np.integer)):
-        return ((int(x) & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
-    return x
-
-
-@functools.partial(jax.jit, static_argnames=("signed", "tile", "interpret"))
-def _call(words_planar, scal, signed: bool, tile: int, interpret: bool):
-    n = words_planar.shape[1]
-    n_pad = -(-n // (8 * tile)) * (8 * tile)
-    wp = jnp.pad(words_planar, ((0, 0), (0, n_pad - n)))
-    ell = n_pad // 8
-    wp = wp.reshape(4, 8, ell)
-    out, valid = pl.pallas_call(
-        functools.partial(_bc6h_kernel, signed=signed),
-        grid=(ell // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((4, 8, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((32, 8, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((32, 8, ell), jnp.int32),
-            jax.ShapeDtypeStruct((8, ell), jnp.int32),
-        ],
-        interpret=interpret,
-    )(scal, wp)
-    return (out.reshape(32, n_pad)[:, :n],
-            valid.reshape(n_pad)[:n] != 0)
+_KERNELS = {signed: functools.partial(_bc6h_kernel, signed=signed)
+            for signed in (False, True)}
 
 
 def decode_bptc_float_planar(words_planar, mode_mask: int = _FULL,
                              flags: int = 0, *, signed: bool = False,
-                             tile: int = 512, interpret: bool | None = None):
+                             interpret: bool = False):
     """BC6H decode, planar: (4, N) words -> ((32, N) int32 packed
     FLOAT_RGBX16 payload — rows 2i = R|G<<16, 2i+1 = B|X<<16 — plus
     (N,) bool valid)."""
-    if interpret is None:
-        interpret = use_interpret()
-    scal = jnp.asarray([_to_i32_scalar(mode_mask), _to_i32_scalar(flags)],
-                       jnp.int32)
-    return _call(words_planar, scal, signed, tile, interpret)
-
-
-def _rows_packed(words, mode_mask, flags, signed, **kw):
-    out, valid = decode_bptc_float_planar(words.T, mode_mask, flags,
-                                          signed=signed, **kw)
-    return out.T, valid                                 # (N, 32)
-
-
-def _rows(words, mode_mask, flags, signed, **kw):
-    pk, valid = _rows_packed(words, mode_mask, flags, signed, **kw)
-    # Channel planes via strided slices of the packed words, stacked
-    # once at the end — the lo/hi interleave form (stack + reshape of
-    # the minor dims) lowers to a ~2x-slower relayout on TPU
-    # (measured in the BC6H->latent pipeline, see PROFILE.md).
-    rg = pk[:, 0::2]                        # (N, 16) r | g<<16
-    bx = pk[:, 1::2]                        # (N, 16) b | x<<16
-    pix = jnp.stack([rg & 0xFFFF, lax.shift_right_logical(rg, 16),
-                     bx & 0xFFFF, lax.shift_right_logical(bx, 16)],
-                    axis=-1)
-    return pix, valid
-
-
-def decode_bptc_float(words, mode_mask: int = _FULL, flags: int = 0, **kw):
-    """Drop-in for ops.bptc_float.decode_bptc_float: (N, 4) int32 ->
-    ((N, 16, 4) int32 u16-valued FLOAT_RGBX16, (N,) bool)."""
-    return _rows(words, mode_mask, flags, False, **kw)
-
-
-def decode_bptc_signed_float(words, mode_mask: int = _FULL, flags: int = 0,
-                             **kw):
-    return _rows(words, mode_mask, flags, True, **kw)
+    return planar_call(_KERNELS[signed], words_planar, mode_mask, flags,
+                       32, interpret=interpret)
 
 
 def decode_bptc_float_packed(words, mode_mask: int = _FULL, flags: int = 0,
-                             **kw):
+                             *, signed: bool = False, **kw):
     """(N, 4) int32 -> ((N, 32) int32 packed FLOAT_RGBX16 payload
-    words, (N,) bool): the kernel's native output, no unpack."""
-    return _rows_packed(words, mode_mask, flags, False, **kw)
-
-
-def decode_bptc_signed_float_packed(words, mode_mask: int = _FULL,
-                                    flags: int = 0, **kw):
-    return _rows_packed(words, mode_mask, flags, True, **kw)
-
-
-def _jnp_packed(words, mode_mask, flags, signed):
-    jfn = (BFJ.decode_bptc_signed_float if signed
-           else BFJ.decode_bptc_float)
-    pix, valid = jfn(words, mode_mask, flags)           # (N, 16, 4)
-    v = (pix & 0xFFFF).reshape(pix.shape[0], 32, 2)
-    return v[:, :, 0] | _shl(v[:, :, 1], 16), valid
-
-
-def _auto(signed, packed=False):
-    def fn(words, mode_mask=_FULL, flags=0):
-        if jax.default_backend() == "tpu":
-            tile = 256 if words.shape[0] >= 8 * 256 else 128
-            rows_fn = _rows_packed if packed else _rows
-            return rows_fn(words, mode_mask, flags, signed, tile=tile,
-                           interpret=False)
-        if packed:
-            return _jnp_packed(words, mode_mask, flags, signed)
-        jfn = (BFJ.decode_bptc_signed_float if signed
-               else BFJ.decode_bptc_float)
-        return jfn(words, mode_mask, flags)
-    return fn
-
-
-decode_bptc_float_auto = _auto(False)
-decode_bptc_signed_float_auto = _auto(True)
-decode_bptc_float_packed_auto = _auto(False, packed=True)
-decode_bptc_signed_float_packed_auto = _auto(True, packed=True)
+    words, (N,) bool): the layout of the engine table's p16x4 kind."""
+    out, valid = decode_bptc_float_planar(words.T, mode_mask, flags,
+                                          signed=signed, **kw)
+    return out.T, valid

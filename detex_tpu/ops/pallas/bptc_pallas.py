@@ -1,14 +1,14 @@
-"""BC7 (BPTC) block decode as a fused Pallas TPU kernel.
+"""BC7 (BPTC) block decode as a fused Pallas kernel, compiled for the
+GPU through Triton (ops/pallas.planar_call).
 
 Same contract and bit-exact semantics as ops.bptc.decode_bptc
-(reference: decompress-bptc.c:354-512), implemented as one VMEM-resident
-VPU pass per tile of blocks:
+(reference: decompress-bptc.c:354-512), implemented as one pass per
+block with no gathers:
 
-  * layout: blocks live on (sublane, lane) = (8, L); words are
-    (4, 8, L) int32 in, pixels (16, 8, L) packed RGBA8 + (8, L)
-    validity out.  Block b <-> (s, l) with b = s*L + l.
+  * layout: words (4, N) int32 in, pixels (16, N) packed RGBA8 + (N,)
+    validity out.
   * every per-mode stream offset is *derived arithmetically* from a
-    handful of per-mode constants (8-way select chains on the VPU);
+    handful of per-mode constants (8-way select chains);
     the derivations are verified against the table-driven layout of
     ops.bptc at import time.
   * the only true table lookups (bptc-tables.c:23-188) are compressed
@@ -17,8 +17,8 @@ VPU pass per tile of blocks:
     anchor POSITIONS packed 2-partitions/word gathered by a 32-way
     tree; the anchors-before counts are not a table at all — they are
     derived in-kernel as the exclusive prefix popcount of the anchor
-    bitmap (bit-spread + one multiply).  No HBM traffic, no XLA
-    gather op.
+    bitmap (bit-spread + one multiply).  No table in device memory,
+    no XLA gather op.
   * bitfield extraction = two-word funnel shift with the word pair
     chosen by a 4-way select (replaces reference bits.c:22-44);
     endpoint fields stream through one 64-bit window per channel
@@ -30,24 +30,19 @@ VPU pass per tile of blocks:
     (c,d) = (1,3)/(3,7)/(7,15); the divisions are exact multiply-shift
     magics, verified against the tables at import time.
 
-Use decode_bptc_planar for the zero-copy perf path; decode_bptc wraps
-it with (N, 4) <-> (N, 16) transposes for drop-in parity with
-ops.bptc.decode_bptc.
+decode_bptc_planar takes planar words; decode_bptc wraps it with
+(N, 4) <-> (N, 16) transposes for drop-in parity with
+ops.bptc.decode_bptc (the engine decoder table's layout).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from detex_tpu.ops import bptc_fast as BF
-from detex_tpu.ops.pallas import use_interpret
+from detex_tpu.ops.pallas import planar_call
 
 _FULL = 0xFFFFFFFF
 
@@ -228,7 +223,7 @@ def _extract_mode_v(b0):
 def _gather_tree(tab, bits):
     """Gather from a 2**len(bits)-entry int32 numpy table by a vector
     index given as precomputed boolean bit vectors (LSB first) — a
-    binary select tree (2**n - 1 selects, all VPU; replaces an XLA
+    binary select tree (2**n - 1 selects, no memory; replaces an XLA
     gather op)."""
     cur = [int(v) for v in tab]
     for b in bits:
@@ -515,77 +510,16 @@ def _bc7_kernel(scal_ref, words_ref, pix_ref, valid_ref):
     valid_ref[...] = valid.astype(jnp.int32)
 
 
-def _to_i32_scalar(x):
-    if isinstance(x, (int, np.integer)):
-        return ((int(x) & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
-    return x
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def _call(words_planar, scal, tile: int, interpret: bool):
-    """words_planar: (4, N) int32 -> ((16, N) int32, (N,) bool)."""
-    n = words_planar.shape[1]
-    n_pad = -(-n // (8 * tile)) * (8 * tile)
-    wp = jnp.pad(words_planar, ((0, 0), (0, n_pad - n)))
-
-    ell = n_pad // 8
-    wp = wp.reshape(4, 8, ell)
-    grid = (ell // tile,)
-    pix, valid = pl.pallas_call(
-        _bc7_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((4, 8, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((16, 8, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((16, 8, ell), jnp.int32),
-            jax.ShapeDtypeStruct((8, ell), jnp.int32),
-        ],
-        interpret=interpret,
-    )(scal, wp)
-    return (pix.reshape(16, n_pad)[:, :n],
-            valid.reshape(n_pad)[:n] != 0)
-
-
 def decode_bptc_planar(words_planar, mode_mask: int = _FULL,
-                       flags: int = 0, *, tile: int = 512,
-                       interpret: bool | None = None):
+                       flags: int = 0, *, interpret: bool = False):
     """BC7 decode, planar layout: (4, N) int32 words ->
     ((16, N) int32 packed RGBA8, (N,) bool valid)."""
-    if interpret is None:
-        interpret = use_interpret()
-    scal = jnp.asarray([_to_i32_scalar(mode_mask), _to_i32_scalar(flags)],
-                       jnp.int32)
-    return _call(words_planar, scal, tile, interpret)
+    return planar_call(_bc7_kernel, words_planar, mode_mask, flags, 16,
+                       interpret=interpret)
 
 
 def decode_bptc(words, mode_mask: int = _FULL, flags: int = 0, **kw):
     """Drop-in for ops.bptc.decode_bptc: (N, 4) int32 words ->
-    ((N, 16) int32, (N,) bool).  Prefer decode_bptc_planar in fused
-    pipelines — the transposes here cost extra HBM traffic."""
+    ((N, 16) int32, (N,) bool)."""
     pix, valid = decode_bptc_planar(words.T, mode_mask, flags, **kw)
     return pix.T, valid
-
-
-def decode_bptc_auto(words, mode_mask: int = _FULL, flags: int = 0):
-    """Best BC7 decoder for the current backend: the fused Pallas
-    kernel on TPU (the pure-XLA path is gather-bound there), the jnp
-    single-pass decoder elsewhere."""
-    if jax.default_backend() == "tpu":
-        # The tile optimum moves with register pressure: 256 (r2) ->
-        # 512 (r3 op cuts) -> 256 again after the round-4 stream
-        # pre-selection + split partition trees (A/B: 2.76e9 @ 256 vs
-        # 2.40e9 @ 512 — see PROFILE.md).
-        tile = 256 if words.shape[0] >= 8 * 256 else 128
-        return decode_bptc(words, mode_mask, flags, tile=tile,
-                           interpret=False)
-    from detex_tpu.ops import bptc_fast as _bf
-    return _bf.decode_bptc_fast(words, mode_mask, flags)

@@ -1,6 +1,6 @@
 """RGTC (BC4/BC5, unsigned + signed) block decoders — batched, branch-free.
 
-TPU-native redesign of the reference per-block decoders
+Batched redesign of the reference per-block decoders
 (reference: decompress-rgtc.c:26-147).  The 3-bit code stream layout is
 identical to the BC3 alpha block (2 endpoint bytes + 48 code bits), so
 the extraction is shared; palettes differ only in the signed mapping.

@@ -1,17 +1,17 @@
-"""Multi-host runtime: jax.distributed init + DCN/ICI mesh layout.
+"""Multi-host runtime: jax.distributed init + a two-level host mesh.
 
 The reference has no distributed machinery (SURVEY.md §2.2); the
-TPU-native scaling model is:
+scaling model is:
 
   * one process per host, connected with jax.distributed.initialize()
   * a 2D ('dcn', 'ici') mesh — the leading axis spans hosts (traffic
-    crosses the data-center network), the trailing axis spans the chips
-    of each host (traffic rides ICI)
+    between hosts crosses the network), the trailing axis spans the
+    devices within a host (traffic stays on the host's device links)
   * collectives are XLA psum/all_gather/ppermute emitted by pjit or
     shard_map; no custom transport anywhere
 
 Shardings should keep heavy reductions (MPPI weight normalization,
-Riccati combines) on the 'ici' axis and only cross 'dcn' for the final
+Riccati combines) within a host and only cross hosts for the final
 small reduce (BASELINE.md >=90% two-host scaling target).
 """
 
@@ -32,7 +32,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
     No-ops when running single-process with no coordinator configured
     (so the same entrypoint works on one host and many).  Arguments
-    default to the standard JAX env vars / TPU metadata discovery."""
+    default to the standard JAX env vars."""
     if (coordinator_address is None and num_processes is None
             and "JAX_COORDINATOR_ADDRESS" not in os.environ
             and "COORDINATOR_ADDRESS" not in os.environ):
@@ -44,8 +44,8 @@ def initialize(coordinator_address: Optional[str] = None,
 
 def make_host_mesh(axis_names: Sequence[str] = ("dcn", "ici"),
                    devices=None) -> Mesh:
-    """Mesh with hosts on the leading (DCN) axis and each host's chips
-    on the trailing (ICI) axis.
+    """Mesh with hosts on the leading axis and each host's devices on
+    the trailing axis.
 
     With a single process this degenerates to (1, n_devices) — the same
     program shape runs anywhere."""

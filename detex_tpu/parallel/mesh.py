@@ -1,13 +1,13 @@
 """Device mesh construction and sharding helpers.
 
 The reference has no distributed machinery at all (SURVEY.md §2.2); the
-TPU-native scaling model is a jax.sharding.Mesh with named axes:
+scaling model is a jax.sharding.Mesh with named axes:
 
   dp — data/rollout parallel (MPPI rollout batch, training batch)
   tp — tensor parallel (dynamics-model hidden dims)
 
-Collectives ride ICI within a slice; a leading host axis can be mapped
-onto DCN by passing an explicit (n_hosts, ...) shape.
+Collectives stay on the device links within a host; a leading host
+axis can be added by passing an explicit (n_hosts, ...) shape.
 """
 
 from __future__ import annotations

@@ -4,8 +4,7 @@ The reference is a stateless library with no persistence (SURVEY.md §5
 checkpoint/resume: absent).  The rebuild checkpoints everything needed
 for *deterministic* resume of a control run: dynamics params, optimizer
 state, the MPPI nominal control sequence, the PRNG key, and the step
-counter.  Saved via orbax; a plain-numpy fallback is provided because
-orbax availability can vary across environments.
+counter, as one npz of the flattened pytree.
 """
 
 from __future__ import annotations
@@ -17,12 +16,6 @@ from typing import Any, Dict
 import jax
 import numpy as np
 
-try:
-    import orbax.checkpoint as ocp
-    _HAVE_ORBAX = True
-except ImportError:      # pragma: no cover
-    _HAVE_ORBAX = False
-
 
 def controller_state(params, opt_state, nominal, key,
                      step: int) -> Dict[str, Any]:
@@ -32,12 +25,8 @@ def controller_state(params, opt_state, nominal, key,
 
 
 def save(path: str, state: Dict[str, Any]) -> None:
-    """Save a pytree checkpoint (orbax if available, else npz)."""
+    """Save a pytree checkpoint as <path>.npz (+ <path>.tree)."""
     path = Path(path)
-    if _HAVE_ORBAX:
-        ckpt = ocp.PyTreeCheckpointer()
-        ckpt.save(path.absolute(), state, force=True)
-        return
     flat, treedef = jax.tree.flatten(state)
     np.savez(path.with_suffix(".npz"),
              *(np.asarray(x) for x in flat))
@@ -46,11 +35,8 @@ def save(path: str, state: Dict[str, Any]) -> None:
 
 def restore(path: str, template: Dict[str, Any]) -> Dict[str, Any]:
     """Restore a checkpoint saved by save(); `template` supplies the
-    pytree structure (and dtypes for the fallback)."""
+    pytree structure."""
     path = Path(path)
-    if _HAVE_ORBAX:
-        ckpt = ocp.PyTreeCheckpointer()
-        return ckpt.restore(path.absolute(), item=template)
     data = np.load(path.with_suffix(".npz"))
     flat_t, treedef = jax.tree.flatten(template)
     flat = [data[f"arr_{i}"] for i in range(len(flat_t))]

@@ -1,7 +1,7 @@
 """Numerical-determinism guards (SURVEY.md §5 determinism row).
 
 The reference's only runtime diagnostics are bool returns + a TLS
-error string (misc.c:75-93); the TPU-native analogue for a functional
+error string (misc.c:75-93); the analogue for a functional
 program is (a) NaN/Inf guards on the float paths and (b) same-seed
 determinism, both checkable without breaking jit:
 

@@ -39,3 +39,45 @@ class Timer:
     def __exit__(self, *exc):
         self.elapsed_s = time.perf_counter() - self.t0
         return False
+
+
+def nvidia_smi() -> str:
+    """Card name and power limit as `nvidia-smi` reports them (a child
+    process, so the caller's JAX state is untouched)."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def device_info() -> Dict[str, Any]:
+    """The device every result must name: platform, kind and count."""
+    import jax
+    dev = jax.devices()[0]
+    return {"platform": dev.platform, "kind": dev.device_kind,
+            "count": len(jax.devices())}
+
+
+def time_samples(fn, samples: int, k: int = 1):
+    """Seconds per call of fn(), one value per sample.  Each sample
+    enqueues `k` calls and ends in block_until_ready; k = 1 times a
+    host-synchronous step."""
+    import jax
+    ts = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            out = fn()
+        jax.block_until_ready(out)
+        ts.append((time.perf_counter() - t0) / k)
+    return ts
+
+
+def time_per_call(fn, samples: int, k: int = 1):
+    """Median seconds per call of fn() and the spread in per cent,
+    (max - min) / median (see time_samples)."""
+    import numpy as np
+    ts = time_samples(fn, samples, k)
+    med = float(np.median(ts))
+    return med, 100.0 * (max(ts) - min(ts)) / med

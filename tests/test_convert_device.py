@@ -15,6 +15,7 @@ import detex_tpu.engine as engine
 import detex_tpu.formats as F
 import detex_tpu.hdr as H
 from detex_tpu import io as tio
+from detex_tpu.utils.blocks import FAMILIES, random_blocks, texture_format
 
 REF = Path("/root/reference")
 
@@ -233,17 +234,19 @@ def test_texture_device_pipeline_tiled(fname, target):
     assert engine.LAST_BACKEND == "device"
 
 
-def test_texture_device_pipeline_partial_blocks():
-    """Non-multiple-of-4 texture: device crop matches host crop
-    (texture.c:115-143 partial edge blocks)."""
+@pytest.mark.parametrize("family", FAMILIES)
+def test_texture_device_pipeline_partial_blocks(family):
+    """Odd-size random texture of every family: the fused device
+    pipeline's crop of partial edge blocks (texture.c:115-143) is
+    bit-exact against the native host backend."""
     from detex_tpu.texture import Texture
-    rng = np.random.default_rng(3)
-    full = tio.load_ktx(str(REF / "test-texture-ETC2_EAC.ktx"))[0]
-    tex = Texture(format=full.format, width=61, height=43,
-                  width_in_blocks=16, height_in_blocks=11,
-                  data=full.data[:16 * 11 * 16])
-    host = engine.decompress_texture_linear(tex, F.BGRA8)
-    dev = engine.decompress_texture_linear(tex, F.BGRA8,
-                                           backend="device")
+    fmt = texture_format(family)
+    w, h = 37, 21
+    rng = np.random.default_rng(w * h + F.compressed_index(fmt))
+    blocks = random_blocks(rng, family, ((w + 3) // 4) * ((h + 3) // 4))
+    tex = Texture.new(fmt, blocks.reshape(-1), w, h)
+    host = engine.decompress_texture_linear(tex, backend="native")
+    dev = engine.decompress_texture_linear(tex, backend="device")
+    assert engine.LAST_BACKEND == "device"
     np.testing.assert_array_equal(host, dev)
-    assert host.size == 61 * 43 * 4
+    assert host.size == w * h * F.pixel_size(F.texture_pixel_format(fmt))

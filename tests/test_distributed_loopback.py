@@ -5,7 +5,7 @@ jax.distributed (coordinator on localhost), builds the ('dcn', 'ici')
 host mesh across both processes' CPU devices, runs two real
 dynamics-model train steps over a globally-sharded batch, and asserts
 the loss trajectory is identical across processes AND equal to the
-single-process run of the same global computation.  No TPU cluster
+single-process run of the same global computation.  No cluster
 needed — this validates the multi-host runtime wiring
 (parallel/distributed.py) end to end.
 """

@@ -69,8 +69,7 @@ def _random_texture(fmt: int, width: int, height: int,
     # round-4 packed-payload kinds through partial edge blocks
     (F.RGTC1, F.RGBX8), (F.RGTC2, F.RGBX8),
     (F.SIGNED_RGTC1, F.RGBX8), (F.BPTC_FLOAT, F.FLOAT_RGBX16),
-    # round-5 planar-fed pipeline: every remaining u32 planar family
-    # through the crop path (engine._PLANAR_DECODERS)
+    # every remaining packed-RGBA8 family through the crop path
     (F.BC1A, F.RGBA8), (F.BC2, F.RGBA8), (F.BC3, F.BGRA8),
     (F.ETC1, F.RGBX8), (F.ETC2, F.RGBA8),
     (F.ETC2_PUNCHTHROUGH, F.RGBA8)])

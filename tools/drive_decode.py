@@ -1,88 +1,68 @@
-"""End-to-end drive: decode every corpus texture through the public
-detex_tpu decoders and compare bit-for-bit against the compiled C
-reference. This is a runtime smoke test (not a pytest) — it exercises
-the real user flow: .ktx file -> block data -> batched decode on the
-default JAX device.
+"""End-to-end drive: decode blocks of every family through the public
+engine API on the default JAX device and compare bit for bit against
+the native C++ oracle (detex_tpu.native, built from native/).  A runtime
+smoke test (not a pytest) of the user flow: block data -> batched
+decode on the device.
 
-Usage: python tools/drive_decode.py [FAMILY ...]
+Blocks are random (valid mode prefixes forced, detex_tpu.utils.blocks)
+unless --corpus names a directory of the reference's test-texture-*.ktx
+files, whose blocks are then decoded too.
+
+Usage: python tools/drive_decode.py [--blocks 65536] [--corpus DIR]
+           [FAMILY ...]
 """
 
-import os
+import argparse
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-sys.path.insert(0, str(REPO / "tools"))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/detex_jax_cache")
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
 
-import jax
-import numpy as np
-
-from detex_tpu.ops import bc, bptc, bptc_float, eac, etc, rgtc
-from detex_tpu.ops.bitops import words_from_bytes
-from refbind import Reference
-
-# family -> (decoder, corpus file, block bytes, out dtype/shape packer)
-DRIVES = {
-    "BC1": (bc.decode_bc1, "test-texture-BC1.ktx", 8, "u32"),
-    "BC1A": (bc.decode_bc1a, "test-texture-BC1A.ktx", 8, "u32"),
-    "BC2": (bc.decode_bc2, "test-texture-BC2.ktx", 16, "u32"),
-    "BC3": (bc.decode_bc3, "test-texture-BC3.ktx", 16, "u32"),
-    "RGTC1": (rgtc.decode_rgtc1, "test-texture-RGTC1.ktx", 8, "u8"),
-    "RGTC2": (rgtc.decode_rgtc2, "test-texture-RGTC2.ktx", 16, "u8"),
-    "SIGNED_RGTC1": (rgtc.decode_signed_rgtc1,
-                     "test-texture-SIGNED_RGTC1.ktx", 8, "u16"),
-    "SIGNED_RGTC2": (rgtc.decode_signed_rgtc2,
-                     "test-texture-SIGNED_RGTC2.ktx", 16, "u16"),
-    "BPTC": (bptc.decode_bptc, "test-texture-BPTC.ktx", 16, "u32"),
-    "BPTC_FLOAT": (bptc_float.decode_bptc_float,
-                   "test-texture-BPTC_FLOAT.ktx", 16, "u16"),
-    "ETC1": (etc.decode_etc1, "test-texture-ETC1.ktx", 8, "u32"),
-    "ETC2": (etc.decode_etc2, "test-texture-ETC2.ktx", 8, "u32"),
-    "ETC2_PUNCHTHROUGH": (etc.decode_etc2_punchthrough,
-                          "test-texture-ETC2_PUNCHTHROUGH.ktx", 8, "u32"),
-    "ETC2_EAC": (etc.decode_etc2_eac, "test-texture-ETC2_EAC.ktx", 16,
-                 "u32"),
-    "EAC_R11": (eac.decode_eac_r11, "test-texture-EAC_R11.ktx", 8, "u16"),
-    "EAC_SIGNED_R11": (eac.decode_eac_signed_r11,
-                       "test-texture-EAC_SIGNED_R11.ktx", 8, "u16"),
-    "EAC_RG11": (eac.decode_eac_rg11, "test-texture-EAC_RG11.ktx", 16,
-                 "u16"),
-}
+from detex_tpu import engine, native  # noqa: E402
+from detex_tpu import io as tio  # noqa: E402
+from detex_tpu.utils.blocks import (FAMILIES, random_blocks,  # noqa: E402
+                                    texture_format)
+from detex_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
 
 
-def pack(pix, kind):
-    a = np.ascontiguousarray(np.asarray(pix))
-    if kind == "u32":
-        return a.view(np.uint32).view(np.uint8).reshape(a.shape[0], -1)
-    if kind == "u8":
-        return np.ascontiguousarray(a.astype(np.uint8)).reshape(
-            a.shape[0], -1)
-    return np.ascontiguousarray(
-        a.astype(np.uint16).reshape(a.shape[0], -1)).view(np.uint8)
+def same(fam, blocks) -> bool:
+    fmt = texture_format(fam)
+    ours, valid = engine.decode_blocks(fmt, blocks, backend="jax")
+    want, want_valid = native.decode(fam, blocks)
+    return (np.array_equal(valid, want_valid)
+            and np.array_equal(ours[want_valid], want[want_valid]))
 
 
 def main():
-    families = sys.argv[1:] or list(DRIVES)
-    ref = Reference()
-    platform = jax.devices()[0].platform
-    print(f"driving {len(families)} families on {platform}")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("families", nargs="*", default=list(FAMILIES))
+    ap.add_argument("--blocks", type=int, default=1 << 16)
+    ap.add_argument("--corpus", type=Path, default=None)
+    args = ap.parse_args()
+    use_compile_cache()
+    if not native.available():
+        sys.exit("native oracle unavailable (make -C native)")
+    print(f"driving {len(args.families)} families on "
+          f"{jax.devices()[0].platform}")
+    rng = np.random.default_rng(0)
     n_fail = 0
-    for fam in families:
-        fn, fname, bs, kind = DRIVES[fam]
-        _, data, w, h = ref.load_texture(f"/root/reference/{fname}")
-        blocks = data.reshape(-1, bs)
-        pix, valid = jax.jit(fn)(words_from_bytes(blocks))
-        ours = pack(pix, kind)
-        ours = np.where(np.asarray(valid)[:, None], ours, 0).astype(np.uint8)
-        rout, rvalid = ref.decode_blocks(fam, blocks)
-        ok = (np.array_equal(ours, rout)
-              and np.array_equal(np.asarray(valid), rvalid))
-        print(f"  {fam:20s} {blocks.shape[0]:4d} blocks: "
-              f"{'BIT-EXACT' if ok else 'MISMATCH'}")
-        n_fail += not ok
+    for fam in args.families:
+        sets = [("random", random_blocks(rng, fam, args.blocks))]
+        path = args.corpus and args.corpus / f"test-texture-{fam}.ktx"
+        if path and path.exists():
+            tex = tio.load_ktx(str(path))[0]
+            sets.append(("corpus", tex.data.reshape(tex.n_blocks,
+                                                    tex.block_size)))
+        for name, blocks in sets:
+            ok = same(fam, blocks)
+            print(f"  {fam:20s} {name:6s} {blocks.shape[0]:7d} blocks: "
+                  f"{'BIT-EXACT' if ok else 'MISMATCH'} "
+                  f"({engine.decoder_name(texture_format(fam))})")
+            n_fail += not ok
     print("FAIL" if n_fail else "ALL BIT-EXACT")
     return 1 if n_fail else 0
 

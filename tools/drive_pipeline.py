@@ -1,72 +1,61 @@
-"""End-to-end drive of the FUSED device pipeline: load corpus
-textures, run `decompress_texture_linear(backend="device")` (decode +
-convert + assemble in one jit) on the default JAX device, and compare
-bit-for-bit against the host path (itself oracle-validated by
-drive_decode.py).  The runtime twin of tests/test_convert_device.py's
-CPU-interpret coverage — run on a TPU it witnesses the compiled fused
-pipeline (reference analogue: validate.c's role for texture.c:40-98).
+"""End-to-end drive of the FUSED device pipeline: random textures of
+every family (odd sizes, so partial edge blocks are cropped) through
+`decompress_texture_linear(backend="device")` (decode + convert +
+assemble in one jit) on the default JAX device, compared bit for bit
+against `backend="native"` (the C++ oracle + host converter).  The
+runtime twin of tests/test_convert_device.py.
 
-Usage: python tools/drive_pipeline.py [FAMILY ...]
+Usage: python tools/drive_pipeline.py [--size 1021x509] [FAMILY ...]
 """
 
-import os
+import argparse
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/detex_jax_cache")
 
-import jax
-import numpy as np
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
 
-from detex_tpu import engine
-from detex_tpu import formats as F
-from detex_tpu import io as tio
-
-CORPUS = Path("/root/reference")
-
-# family -> (corpus file, output pixel formats to exercise)
-DRIVES = {
-    "ETC2_EAC": ("test-texture-ETC2_EAC.ktx", [F.RGBA8, F.BGRA8]),
-    "BPTC": ("test-texture-BPTC.ktx", [F.RGBA8, F.RGBX8]),
-    "ETC2": ("test-texture-ETC2.ktx", [F.RGBA8]),
-    "EAC_R11": ("test-texture-EAC_R11.ktx", [F.RGBX8]),
-    "BPTC_FLOAT": ("test-texture-BPTC_FLOAT.ktx", [F.FLOAT_RGBX16]),
-    "BC1": ("test-texture-BC1.ktx", [F.RGBA8]),
-    "BC3": ("test-texture-BC3.ktx", [F.RGBA8]),
-    "RGTC2": ("test-texture-RGTC2.ktx", [F.RGBX8]),
-    # the remaining packed payload kinds: p8 / p16 signed / p16x2
-    "RGTC1": ("test-texture-RGTC1.ktx", [F.RGBX8]),
-    "SIGNED_RGTC1": ("test-texture-SIGNED_RGTC1.ktx", [F.RGBX8]),
-    "EAC_RG11": ("test-texture-EAC_RG11.ktx", [F.RGBX8]),
-}
+from detex_tpu import engine  # noqa: E402
+from detex_tpu import formats as F  # noqa: E402
+from detex_tpu.texture import Texture  # noqa: E402
+from detex_tpu.utils.blocks import (FAMILIES, random_blocks,  # noqa: E402
+                                    texture_format)
+from detex_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
 
 
 def main():
-    families = sys.argv[1:] or list(DRIVES)
-    platform = jax.devices()[0].platform
-    print(f"driving fused device pipeline on {platform}")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("families", nargs="*", default=list(FAMILIES))
+    ap.add_argument("--size", default="1021x509")
+    args = ap.parse_args()
+    use_compile_cache()
+    w, h = (int(v) for v in args.size.split("x"))
+    print(f"driving fused device pipeline on {jax.devices()[0].platform}")
+    rng = np.random.default_rng(0)
     failures = 0
-    for fam in families:
-        fname, outs = DRIVES[fam]
-        tex = tio.load_texture_file(str(CORPUS / fname))[0]
+    for fam in args.families:
+        fmt = texture_format(fam)
+        n = ((w + 3) // 4) * ((h + 3) // 4)
+        tex = Texture.new(fmt, random_blocks(rng, fam, n).reshape(-1), w, h)
+        outs = [None] + ([F.BGRA8] if F.texture_pixel_format(fmt)
+                         in (F.RGBA8, F.RGBX8) else [])
         for pf in outs:
-            want = engine.decompress_texture_linear(tex, pixel_format=pf,
-                                                    backend="jax")
-            got = engine.decompress_texture_linear(tex, pixel_format=pf,
+            want = engine.decompress_texture_linear(tex, pf,
+                                                    backend="native")
+            got = engine.decompress_texture_linear(tex, pf,
                                                    backend="device")
-            w = np.ascontiguousarray(np.asarray(want)).view(np.uint8)
-            g = np.ascontiguousarray(np.asarray(got)).view(np.uint8)
-            ok = np.array_equal(w, g)
-            status = "BIT-EXACT" if ok else "MISMATCH"
-            print(f"  {fam:12s} -> {F.format_name(pf):14s} {status}")
-            failures += 0 if ok else 1
-    if failures:
-        print(f"{failures} MISMATCHES")
-        sys.exit(1)
-    print("ALL BIT-EXACT")
+            ok = (engine.LAST_BACKEND == "device"
+                  and np.array_equal(want, got))
+            name = F.format_name(pf) if pf else "default"
+            print(f"  {fam:20s} -> {name:14s} "
+                  f"{'BIT-EXACT' if ok else 'MISMATCH'}")
+            failures += not ok
+    print(f"{failures} MISMATCHES" if failures else "ALL BIT-EXACT")
+    return 1 if failures else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -10,6 +10,9 @@ numpy implementation reproduces.
 
 Output: tests/golden/convert.npz with entries
     pair{i}_src_fmt / _dst_fmt / _src (bytes) / _out (bytes)
+
+Host-only: needs the C reference's sources (tools/refbind.py), which the
+repository does not carry; the committed goldens are its output.
 """
 
 from __future__ import annotations

@@ -12,6 +12,9 @@ Outputs (committed to the repo so the test suite is standalone):
   detex_tpu/data/bptc_tables.npz : BC7/BC6H partition/anchor/weight tables
       read straight out of the reference binary (spec constants as data).
 
+Host-only: needs the C reference's sources (tools/refbind.py), which
+the repository does not carry; the committed goldens are its output.
+
 Usage:  python tools/gen_goldens.py
 """
 

@@ -18,51 +18,19 @@ miscompare.
 """
 
 import argparse
-import os
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/detex_jax_cache")
 
-import numpy as np
+import numpy as np  # noqa: E402
 
-from detex_tpu import engine
-from detex_tpu import formats as F
-
-FAMILIES = {
-    "BC1": (F.BC1, 8, None), "BC1A": (F.BC1A, 8, None),
-    "BC2": (F.BC2, 16, None), "BC3": (F.BC3, 16, None),
-    "RGTC1": (F.RGTC1, 8, None),
-    "SIGNED_RGTC1": (F.SIGNED_RGTC1, 8, None),
-    "RGTC2": (F.RGTC2, 16, None),
-    "SIGNED_RGTC2": (F.SIGNED_RGTC2, 16, None),
-    "BPTC": (F.BPTC, 16, "bc7"),
-    "BPTC_FLOAT": (F.BPTC_FLOAT, 16, "bc6h"),
-    "BPTC_SIGNED_FLOAT": (F.BPTC_SIGNED_FLOAT, 16, "bc6h"),
-    "ETC1": (F.ETC1, 8, None), "ETC2": (F.ETC2, 8, None),
-    "ETC2_PUNCHTHROUGH": (F.ETC2_PUNCHTHROUGH, 8, None),
-    "ETC2_EAC": (F.ETC2_EAC, 16, None),
-    "EAC_R11": (F.EAC_R11, 8, None),
-    "EAC_SIGNED_R11": (F.EAC_SIGNED_R11, 8, None),
-    "EAC_RG11": (F.EAC_RG11, 16, None),
-    "EAC_SIGNED_RG11": (F.EAC_SIGNED_RG11, 16, None),
-}
-
-
-def gen_blocks(rng, n, bb, fixup):
-    blocks = rng.integers(0, 256, (n, bb), np.uint8)
-    if fixup == "bc7":
-        modes = rng.integers(0, 8, n)
-        blocks[:, 0] = ((1 << modes)
-                        | (blocks[:, 0] & (0xFF << (modes + 1)))
-                        ).astype(np.uint8)
-    elif fixup == "bc6h":
-        blocks[:, 0] = ((blocks[:, 0] & 0xFC)
-                        | rng.integers(0, 2, n)).astype(np.uint8)
-    return blocks
+from detex_tpu import engine  # noqa: E402
+from detex_tpu.utils.blocks import (FAMILIES, random_blocks,  # noqa: E402
+                                    texture_format)
+from detex_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
 
 
 def main():
@@ -71,18 +39,19 @@ def main():
     ap.add_argument("--blocks", type=int, default=1 << 20)
     ap.add_argument("--chunk", type=int, default=1 << 18)
     args = ap.parse_args()
+    use_compile_cache()
 
     rng = np.random.default_rng(20260821)
     total = 0
     bad = []
     t_all = time.perf_counter()
     for name in args.families:
-        fmt, bb, fixup = FAMILIES[name]
+        fmt = texture_format(name)
         n_done = 0
         t0 = time.perf_counter()
         while n_done < args.blocks:
             n = min(args.chunk, args.blocks - n_done)
-            blocks = gen_blocks(rng, n, bb, fixup)
+            blocks = random_blocks(rng, name, n)
             ours, ov = engine.decode_blocks(fmt, blocks)
             want, wv = engine.decode_blocks(fmt, blocks,
                                             backend="native")

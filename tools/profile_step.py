@@ -2,7 +2,7 @@
 (SURVEY.md §5 tracing row).
 
 Captures a device trace of N control steps into --out (default
-/tmp/detex_trace); open with TensorBoard's profile plugin or
+<repo>/out/trace); open with TensorBoard's profile plugin or
 Perfetto (trace.json.gz inside the run directory).  Also prints the
 per-step wall time so the trace can be sanity-checked against
 tools/bench_control_step.py numbers.
@@ -12,14 +12,12 @@ Usage: python tools/profile_step.py [--steps 20] [--ilqr 2]
 
 import argparse
 import functools
-import os
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/detex_jax_cache")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -28,6 +26,7 @@ import numpy as np  # noqa: E402
 from detex_tpu.mpc import dynamics as D  # noqa: E402
 from detex_tpu.mpc import mppi as M  # noqa: E402
 from detex_tpu.mpc.runtime import ControllerConfig, control_step  # noqa: E402
+from detex_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
 
 
 def main():
@@ -36,8 +35,9 @@ def main():
     ap.add_argument("--ilqr", type=int, default=0)
     ap.add_argument("--rollouts", type=int, default=8192)
     ap.add_argument("--horizon", type=int, default=32)
-    ap.add_argument("--out", default="/tmp/detex_trace")
+    ap.add_argument("--out", default=str(REPO / "out" / "trace"))
     args = ap.parse_args()
+    use_compile_cache()
 
     cfg = ControllerConfig(
         mppi=M.MPPIConfig(n_rollouts=args.rollouts, horizon=args.horizon,

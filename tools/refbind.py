@@ -2,7 +2,10 @@
 
 Used ONLY by golden-vector generation and property tests: the reference
 library is the bit-exactness oracle (SURVEY.md §4 "implications for the
-rebuild").  The framework itself never imports this module.
+rebuild").  The framework itself never imports this module, and nothing
+on the GPU path needs it: it is a host-only tool that needs the C
+reference's sources, which the repository does not carry (the native
+oracle, native/dtxnative.cpp, serves the runtime checks).
 
 The shared object is built out-of-tree from /root/reference (read-only):
     tools/build_reference.sh /tmp/refbuild
